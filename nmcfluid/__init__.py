@@ -1,4 +1,4 @@
-"""nmcfluid — a TPU-native neural Monte Carlo fluid solver (JAX/XLA/Pallas).
+"""nmcfluid — a neural Monte Carlo fluid solver in JAX.
 
 A from-scratch rebuild of the capability set of
 Pranav-Jain/Neural-Monte-Carlo-Fluid-Simulation ("Neural Monte Carlo Fluid
@@ -15,7 +15,7 @@ Layer map (see SURVEY.md for the reference analysis this build follows):
   geometry/  segment/triangle soups, closest-point / ray / silhouette
              queries, analytic SDFs    (replaces FCPW + geometric_queries.h)
   wost/      the batched walk-on-stars estimator — solution and gradient —
-             as vectorized JAX + Pallas kernels
+             as vectorized JAX
                                        (replaces zombie walk_on_stars.h and
              the pybind11 demo bindings)
   models/    SIREN velocity fields, per-scene hard boundary conditions

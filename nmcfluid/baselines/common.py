@@ -38,10 +38,9 @@ def sample_boundary(key, n):
     return xv, xh   # (vertical walls: x = +-1), (horizontal: y = +-1)
 
 
-_SEG = 5000   # while-loop trips per device program: the v5e worker
-              # faults on single programs with >~10-20k sequential trips
-              # (measured: 10k fits run, a 20k fit kills the worker), so
-              # long fits chain capped segments with a host sync between
+_SEG = 5000   # while-loop trips per device program: long fits chain
+              # capped segments with a host sync between (a guard sized on
+              # another accelerator; untuned on the GPU)
 
 
 class SegmentedAdam:

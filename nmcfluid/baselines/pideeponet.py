@@ -63,7 +63,7 @@ class PIDeepONetFluid:
 
     def train(self, state, key):
         # NOT jitted: adam_fit chains <=5k-trip device segments on the
-        # host (the 50k-iter single program faults the v5e worker)
+        # host (common._SEG)
         def loss_fn(st, ki):
             k0, k1, k2, k3 = jax.random.split(ki, 4)
             x0 = sample_interior(k0, self.n)

@@ -128,9 +128,8 @@ def ray_intersect(g: Analytic2D, o, d, t_max):
         t = jnp.where(t1 > 0.0, t1, jnp.where(t2 > 0.0, t2, jnp.inf))
         t = jnp.where(disc >= 0.0, t, jnp.inf)
         # winning circle via min + one-hot weighted sum, NOT argmin +
-        # take_along_axis/row-gather: per-lane gathers serialize on TPU
-        # even over C=1 candidates (profiled at ~14 ms/trip for 524k
-        # lanes inside the karman walk loop — half the solve)
+        # take_along_axis/row-gather: a gather-free select (chosen on
+        # another accelerator; not yet timed against a gather on the GPU)
         tc = jnp.min(t, axis=-1)
         better = tc < t_best
         onehot = (jax.lax.broadcasted_iota(jnp.int32, t.shape, t.ndim - 1)

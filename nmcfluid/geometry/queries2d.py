@@ -55,8 +55,8 @@ def closest_point(soup: Seg2D, x):
     p = a + t[..., None] * ab                   # (..., P, 2)
     d2 = jnp.sum((x[..., None, :] - p) ** 2, -1)
     # min + one-hot selects, not argmin + take_along_axis/row-gathers:
-    # per-lane gathers serialize on TPU (profiled at ~7 ms per 524k-lane
-    # call inside the walk loop); a (..., P) mask reduce is pure VPU
+    # a (..., P) masked reduce with no gather (chosen on another
+    # accelerator; not yet timed against a gather on the GPU)
     oh = _onehot_argmin(d2)
     dist = jnp.sqrt(jnp.min(d2, axis=-1))
     pt = jnp.sum(oh[..., None] * p, axis=-2)

@@ -84,7 +84,7 @@ def closest_point(soup: Tri3D, x):
     p = _closest_on_tri(x[..., None, :], soup.va, soup.vb, soup.vc)
     d2 = jnp.sum((x[..., None, :] - p) ** 2, -1)
     # min + one-hot masked reduces, not argmin + take_along_axis/row-
-    # gathers: per-lane gathers serialize on TPU (see queries2d)
+    # gathers (see queries2d)
     oh = _onehot_argmin(d2)
     dist = jnp.sqrt(jnp.min(d2, axis=-1))
     pt = jnp.sum(oh[..., None] * p, axis=-2)

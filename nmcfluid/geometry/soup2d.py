@@ -1,11 +1,11 @@
 """2D line-segment soups with silhouette-vertex tables.
 
-TPU-native replacement for FCPW's line-segment BVH
-(reference: bindings/zombie/deps/fcpw, loaded via
+Replacement for FCPW's line-segment BVH (reference:
+bindings/zombie/deps/fcpw, loaded via
 bindings/zombie/include/zombie/utils/fcpw_scene_loader.h:118-177). Every
-shipped scene has <= a few hundred segments, so brute-force masked
-reductions over a padded primitive array in VMEM beat a BVH on TPU — no
-pointer chasing, fully vectorized over walker lanes.
+shipped scene has <= a few hundred segments, so queries are brute-force
+masked reductions over a padded primitive array — no pointer chasing,
+fully vectorized over walker lanes.
 
 Conventions (matched to the reference, verified against its OBJ assets):
   * segment normal n = normalize((d.y, -d.x)) for direction d = b - a

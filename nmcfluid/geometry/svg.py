@@ -1,9 +1,9 @@
 """SVG path -> 2D line-OBJ conversion (dependency-free).
 
 Replaces src/3d/wost/svg2obj.py, which shells through svgpathtools +
-shapely (neither is in this image). Parses the `d` attribute subset the
-reference assets actually use — M/m, L/l, H/h, V/v, C/c, Q/q, Z/z — and
-flattens curves into fixed-count polylines.
+shapely (neither is a dependency of this package). Parses the `d`
+attribute subset the reference assets actually use — M/m, L/l, H/h,
+V/v, C/c, Q/q, Z/z — and flattens curves into fixed-count polylines.
 
 `python -m nmcfluid.geometry.svg in.svg out.obj [--samples 20] [--scale S]`
 """

@@ -7,18 +7,19 @@ U(-1/fan_in, 1/fan_in), hidden layers U(+-sqrt(6/fan_in)/30)
 (networks.py:34-37, init at :71-96; the 3D file differs only in the
 normal-init std, 1.0 vs 0.1).
 
-Design notes (TPU):
+Design notes:
   * Parameters live in a flat list-of-(W, b) pytree; `apply_siren` is a pure
     function, so phase trainers swap params freely (the reference's
     velocity/prev/tilde triple becomes three pytrees sharing one apply).
-  * All matmuls are (batch, H) x (H, H) — with H in {64, 128} and batches of
-    128^2..512^2 points they tile cleanly onto the MXU. Weights stay f32
-    (they are <=200k numbers; accuracy of the PDE fit dominates, not HBM).
-  * Matmuls are pinned to Precision.HIGHEST: the TPU default rounds inputs
-    to bfloat16 (~4e-3 relative), which the sin(30x) layers amplify into a
-    velocity-error floor far above the phase fits' 1.1e-10 early-stop MSE
-    target (the reference trains f32 on CUDA GPUs, networks.py matmuls are
-    full f32). The layers are tiny, so the f32 MXU rate costs nothing.
+  * All matmuls are (batch, H) x (H, H) with H in {64, 128} and batches of
+    128^2..512^2 points. Weights stay f32 (they are <=200k numbers;
+    accuracy of the PDE fit dominates, not memory traffic).
+  * Matmul precision defaults to Precision.HIGHEST, full f32: the
+    reference trains in f32 (networks.py matmuls), and the sin(30x)
+    layers amplify input rounding into a velocity-error floor far above
+    the phase fits' 1.1e-10 early-stop MSE target. Reduced-precision
+    modes (TF32 on the GPU) are selectable with NMCFLUID_MATMUL_PRECISION
+    but have not passed the Taylor-Green error gate on the GPU.
   * Biases are zero-init: torch.nn.Linear's default U(+-1/sqrt(fan_in)) bias
     init is noise the SIREN paper does not rely on; zero keeps the first
     activations in sin's linear regime. (Deliberate deviation, documented.)
@@ -32,19 +33,30 @@ from typing import List, Tuple
 import jax
 import jax.numpy as jnp
 
-# f32 emulation depth for the network matmuls. HIGH (3-pass bf16,
-# ~22-bit mantissa coverage) is the accuracy-validated default: the
-# round-3 TG gate measured frames-1-50 mean error 3.578e-4 under HIGH vs
-# 3.62e-4 under the 6-pass HIGHEST (both beat the published 4.142e-4)
-# at 15% less 2D frame time / 18% less 3D (docs/precision_gate section
-# of PARITY.md). Pure-bf16 DEFAULT fails the same gate (6.86e-4,
-# drifting to 1.35e-3 by frame 50) — 8 mantissa bits cannot hold the
-# ~1e-7-loss per-frame refits. Override with NMCFLUID_MATMUL_PRECISION.
-_PRECISION = {
+_PRECISIONS = {
     "highest": jax.lax.Precision.HIGHEST,
     "high": jax.lax.Precision.HIGH,
     "default": jax.lax.Precision.DEFAULT,
-}[os.environ.get("NMCFLUID_MATMUL_PRECISION", "high").lower()]
+}
+
+
+def resolve_precision(name=None):
+    """Matmul precision for the network layers: `name`, else the
+    NMCFLUID_MATMUL_PRECISION variable, else 'highest' (full f32; see the
+    module notes). An 8-bit-mantissa 'default' failed the Taylor-Green
+    error gate (error_bem_prec_default_r3.txt: 6.86e-4 against the
+    published 4.142e-4)."""
+    if name is None:
+        name = os.environ.get("NMCFLUID_MATMUL_PRECISION", "highest")
+    try:
+        return _PRECISIONS[name.lower()]
+    except KeyError:
+        raise ValueError(
+            f"NMCFLUID_MATMUL_PRECISION={name!r}: expected one of "
+            f"{sorted(_PRECISIONS)}") from None
+
+
+_PRECISION = resolve_precision()
 
 Params = List[Tuple[jax.Array, jax.Array]]
 
@@ -103,22 +115,26 @@ def _nl(name: str, x):
     raise NotImplementedError(name)
 
 
-def apply_siren(params: Params, cfg: SirenConfig, x):
+def apply_siren(params: Params, cfg: SirenConfig, x, precision=None):
     """Evaluate the network at x (..., in_features) -> (..., out_features).
 
-    The outermost layer is linear (networks.py:53-54, outermost_linear)."""
+    The outermost layer is linear (networks.py:53-54, outermost_linear).
+    `precision` overrides the module's matmul precision."""
     w, b = params[-1]
-    dot = partial(jnp.dot, precision=_PRECISION)
-    return dot(apply_siren_features(params, cfg, x), w) + b
+    prec = _PRECISION if precision is None else precision
+    dot = partial(jnp.dot, precision=prec)
+    return dot(apply_siren_features(params, cfg, x, precision), w) + b
 
 
-def apply_siren_features(params: Params, cfg: SirenConfig, x):
+def apply_siren_features(params: Params, cfg: SirenConfig, x,
+                         precision=None):
     """Penultimate activations: the (..., hidden_features) input to the
     final linear layer. Because that layer is linear (outermost_linear,
     networks.py:53-54), the network is affine in its head given these
     features — which is what makes the closed-form head solve in
     sim.fluid exact."""
-    dot = partial(jnp.dot, precision=_PRECISION)
+    prec = _PRECISION if precision is None else precision
+    dot = partial(jnp.dot, precision=prec)
     h = x
     for w, b in params[:-1]:
         h = _nl(cfg.nonlinearity, dot(h, w) + b)

@@ -1,7 +1,7 @@
 """Float32-safe modified Bessel functions for the 2D Yukawa Green's function.
 
 The reference solver evaluates K0/K1/I0/I1 (bindings/zombie/deps/bessel) in
-double precision; on TPU we work in float32, where I0(x) overflows for
+double precision; here we work in float32, where I0(x) overflows for
 x > ~88 and K0(x) underflows. All 2D Yukawa ball quantities are therefore
 expressed in terms of the *scaled* functions
 

@@ -66,15 +66,16 @@ def fit_cylinder_correction(g_grid, scene_size, center_xz, radius, sigma,
     cos_mt = jnp.cos(m[:, None] * theta[None, :])       # (M, T)
     sin_mt = jnp.sin(m[:, None] * theta[None, :])
     scale_t = jnp.where(m == 0, 1.0 / n_theta, 2.0 / n_theta)
-    h_cos = (h @ cos_mt.T) * scale_t[None, :]           # (Ys, M)
-    h_sin = (h @ sin_mt.T) * scale_t[None, :]
+    dot = partial(jnp.dot, precision=jax.lax.Precision.HIGHEST)
+    h_cos = dot(h, cos_mt.T) * scale_t[None, :]         # (Ys, M)
+    h_sin = dot(h, sin_mt.T) * scale_t[None, :]
     # y-DCT (Neumann-compatible cosines)
     j = jnp.arange(n_y)
     cos_jy = jnp.cos(j[:, None] * math.pi / Ly
                      * (ys[None, :] - y0))              # (J, Ys)
     scale_y = jnp.where(j == 0, 1.0 / n_ys, 2.0 / n_ys)
-    Hc = scale_y[:, None] * (cos_jy @ h_cos)            # (J, M)
-    Hs = scale_y[:, None] * (cos_jy @ h_sin)
+    Hc = scale_y[:, None] * dot(cos_jy, h_cos)          # (J, M)
+    Hs = scale_y[:, None] * dot(cos_jy, h_sin)
 
     # per-j diagonal solve: d_rho q|_a = s_j * s_m(z0_j) * coeff = H
     denoms = []

@@ -2,7 +2,7 @@
 
 The reference computes divergence with a per-component reverse-mode autograd
 loop (src/2d/utils/diff_ops.py:45-51) and curl from the Jacobian. With 2-3
-input dimensions, forward mode is the right tool on TPU: `jacfwd` costs dim
+input dimensions, forward mode is the right tool: `jacfwd` costs dim
 forward passes, fuses into one XLA computation, and needs no graph retention.
 
 All operators take `f: (dim,) -> (out,)` and map over batched points of

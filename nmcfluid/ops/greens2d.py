@@ -2,7 +2,7 @@
 
 Re-derivation of zombie's `HarmonicGreensFnBall<2>` / `YukawaGreensFnBall<2>`
 (reference: bindings/zombie/include/zombie/core/distributions.h:397-474,
-573-696) in scaled-Bessel form so everything is float32-safe on TPU: with
+573-696) in scaled-Bessel form so everything is float32-safe: with
 z = sqrt(lam)*r and Z = sqrt(lam)*R, ratios like K0(Z)/I0(Z) are computed as
 (k0e(Z)/i0e(Z)) * exp(-2Z) and cross terms carry exp(2z-2Z) <= 1 factors.
 

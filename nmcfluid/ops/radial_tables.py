@@ -4,7 +4,7 @@ The reference rejection-samples the radial density with an empirical
 envelope bound and up to 1000 attempts (distributions.h:362-409,590-599).
 That bound becomes catastrophically loose at large sqrt(lam)*R (acceptance
 ~1% for the fluid's sigma=350 on scene-sized balls), so a fixed small
-attempt count on TPU would bias the source term. Instead we tabulate the
+attempt count would bias the source term. Instead we tabulate the
 inverse CDF of the *scale-free* radial density of t = r/R, parameterized by
 Z = sqrt(lam)*R, once per (dim, lam) in float64 on the host, and sample
 with one uniform + a bilinear gather — exact to table resolution, O(1)
@@ -76,8 +76,7 @@ _DLOG = (math.log(_Z_MAX) - _LOG_Z_MIN) / (_N_Z - 1)
 def pack_quads(table: np.ndarray) -> np.ndarray:
     """(N_Z, N_U) -> (N_Z-1, N_U-1, 4) bilinear quads [t00, t01, t10, t11].
 
-    The walk inner loop is gather-bound on TPU (XLA gathers serialize);
-    packing the four bilinear neighbors contiguously turns the per-draw
+    Packing the four bilinear neighbors contiguously turns the per-draw
     lookup into ONE gather of a 4-float row instead of four scattered
     element gathers. Values are identical to the unpacked lookup."""
     return np.ascontiguousarray(np.stack(
@@ -115,17 +114,15 @@ def sample_t_screened_u_mm(table, Z, u):
     """As sample_t_screened_u but table-GATHER-FREE: `table` is the RAW
     (N_Z, N_U) build_table(dim) output (f32).
 
-    TPU gathers serialize (~0.6 ms per 65k-lane draw measured in
-    wost/pallas_probe.py); expressing the same bilinear lookup as a
-    two-nonzero masked row times the table on the MXU is ~2-4x faster
-    in-loop and is the form a fused Pallas walk kernel can lower (Mosaic
-    cannot lower big-table per-lane gathers at all — probe round 2).
+    The same bilinear lookup expressed as a two-nonzero masked row
+    times the table: a matmul in place of per-lane gathers. It was
+    chosen on another accelerator and is not yet timed against the
+    plain gather on the GPU.
 
     Contraction order is u-interp FIRST, then Z-interp — the reference
     combine order — and the masked rows have exactly two nonzeros, so
     the result matches the 4-gather bilinear lookup to ~1 ulp (matmul
-    FMAs leave the product unrounded before the add; on TPU HIGHEST the
-    3-pass bf16 products add another ~1 ulp). Irrelevant to an MC
+    FMAs leave the product unrounded before the add). Irrelevant to an MC
     estimator; asserted in tests/test_greens.py.
     """
     tj = jnp.asarray(table)

@@ -1,6 +1,6 @@
 """Sphere/ball direction sampling and stratified sample generation.
 
-TPU-native counterpart of zombie's core/sampling.h (reference:
+Counterpart of zombie's core/sampling.h (reference:
 bindings/zombie/include/zombie/core/sampling.h:22-174,435-457). All samplers
 are counter-based on jax.random keys — unlike the reference, which seeds a
 per-point pcg32 from the wall clock (walk_on_stars.h:638-641), runs here are

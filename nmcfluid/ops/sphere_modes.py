@@ -170,7 +170,7 @@ def fit_sphere_correction(g_grid, scene_size, center, radius, sigma,
                    for i in range(3)], axis=-1)
     h = -jnp.sum(g * nrm, axis=-1)
     Y = _real_sph_harm(ct, st, phi, n_l)                 # (B, L^2)
-    h_lm = (w * h) @ Y
+    h_lm = jnp.dot(w * h, Y, precision=jax.lax.Precision.HIGHEST)
     lidx = np.concatenate([[l] * (2 * l + 1) for l in range(n_l)])
     denom = math.sqrt(sigma) * jnp.asarray(s, h_lm.dtype)[lidx]
     return h_lm / denom

@@ -7,7 +7,7 @@ images; demo/scenes/engine/ ships a worked example). The fluid repo's
 copy comments the boundary-value images out, but the shipped engine
 config (`scenes/engine/wost.json`) and its committed solution
 (`scenes/engine/solutions/wost.pfm`) exercise the full mixed-BC path —
-this module reproduces it on the TPU estimator.
+this module reproduces it on the JAX estimator.
 
 Conventions, matched to the reference and verified empirically against
 the engine assets (the is_neumann mask is perfectly bimodal at segment

@@ -1,7 +1,7 @@
 """Deterministic boundary-element projection: FFT volume potential +
 Nystrom-solved boundary integral equation + kernel splats.
 
-This is the TPU-first generalization of zombie's boundary value caching
+This is a generalization of zombie's boundary value caching
 (bindings/zombie/include/zombie/boundary_value_caching/{boundary_sampler,
 splatter}.h, rebuilt in nmcfluid.wost.bvc): the reference caches WoSt
 *estimates* of the solution at boundary samples and splats them through
@@ -332,18 +332,10 @@ class BemProjector:
         A_inv = self._load_or_build_A(scene, pts, nrm, w, Vc_cache,
                                       div_resolution, cache_dir) \
             if nystrom else None
-        # device-side constants (downcast on the HOST: the TPU runtime has
-        # no f64/c128 convert_element_type; it also cannot device_put
-        # complex arrays AT ALL — device-side complex from the FFT ops is
-        # fine — so kernel FFTs travel as stacked (real, imag) float32 and
-        # are rebuilt with lax.complex inside the jitted solve)
-        def _ri(K):
-            return jnp.asarray(
-                np.stack([K.real, K.imag]).astype(np.float32))
-
-        self.KGf_ri = _ri(KGf)
-        self.KXf_ri = _ri(KXf)
-        self.KYf_ri = _ri(KYf)
+        # device-side constants, downcast from float64 on the host
+        self.KGf = jnp.asarray(KGf.astype(np.complex64))
+        self.KXf = jnp.asarray(KXf.astype(np.complex64))
+        self.KYf = jnp.asarray(KYf.astype(np.complex64))
         self.chi = jnp.asarray(chi.astype(np.float32))
         self.Vc = jnp.asarray(Vc.astype(np.float32))
         self.gVc = jnp.asarray(
@@ -396,12 +388,9 @@ def _volume_potentials(bp: BemProjector, div_grid):
     Nx, Ny = bp.fft_shape
     f = (div_grid * bp.chi).astype(jnp.float32)
     F = jnp.fft.rfft2(f, s=(Nx, Ny))
-    KGf = jax.lax.complex(bp.KGf_ri[0], bp.KGf_ri[1])
-    KXf = jax.lax.complex(bp.KXf_ri[0], bp.KXf_ri[1])
-    KYf = jax.lax.complex(bp.KYf_ri[0], bp.KYf_ri[1])
-    V = jnp.fft.irfft2(F * KGf, s=(Nx, Ny))[:Rx + 1, :Ry + 1]
-    Gx = jnp.fft.irfft2(F * KXf, s=(Nx, Ny))[:Rx + 1, :Ry + 1]
-    Gy = jnp.fft.irfft2(F * KYf, s=(Nx, Ny))[:Rx + 1, :Ry + 1]
+    V = jnp.fft.irfft2(F * bp.KGf, s=(Nx, Ny))[:Rx + 1, :Ry + 1]
+    Gx = jnp.fft.irfft2(F * bp.KXf, s=(Nx, Ny))[:Rx + 1, :Ry + 1]
+    Gy = jnp.fft.irfft2(F * bp.KYf, s=(Nx, Ny))[:Rx + 1, :Ry + 1]
     return V, Gx, Gy
 
 
@@ -410,7 +399,8 @@ def _bem_solve(bp: BemProjector, div_grid, pts):
     ss = bp.scene.scene_size
     V, Gx, Gy = _volume_potentials(bp, div_grid)
     rhs = _vertex_bilerp(V, ss, bp.cache_pts)
-    u_gamma = bp.A_inv @ rhs                                  # (B,)
+    u_gamma = jnp.dot(bp.A_inv, rhs,
+                      precision=jax.lax.Precision.HIGHEST)    # (B,)
     return _splat(bp, u_gamma, V, Gx, Gy, pts)
 
 
@@ -434,8 +424,7 @@ def _splat(bp: BemProjector, u_gamma, V, Gx, Gy, pts):
         P = -dgdr * jnp.sum(d * bp.cache_n[None], axis=-1) / rs
         dP = _free_dP(2, sigma, d, rs, bp.cache_n[None])      # (C, B, 2)
         # nearest cache value as the constant shift (min + one-hot masked
-        # reduce: random-index gathers are the measured serialization trap
-        # on this hardware — see PARITY.md walk-loop profile)
+        # reduce instead of a random-index gather)
         rmin = jnp.min(r, axis=1, keepdims=True)
         sel = (r <= rmin).astype(jnp.float32)
         c = jnp.sum(sel * u_gamma[None], axis=1) \

@@ -16,9 +16,10 @@ Per-timestep flow (model_split.py:44-82):
              cloud, then fit u(x) to u_prev(x) - grad p(x)  (:245-284)
     prev <- params
 with the adv_ref=1 (MacCormack/reflection) variant doubling both phases
-(:63-81). The WoSt stage runs entirely on-TPU (nmcfluid.wost) instead of
-crossing into C++/TBB; its per-step divergence grid is threaded through the
-solver as a dynamic argument so each scene compiles exactly once.
+(:63-81). The WoSt stage runs entirely on the device (nmcfluid.wost)
+instead of crossing into C++/TBB; its per-step divergence grid is threaded
+through the solver as a dynamic argument so each scene compiles exactly
+once.
 """
 import time
 from functools import partial
@@ -81,8 +82,6 @@ class NeuralFluid:
                  fit_unroll: int = 4,
                  fit_plateau: int = 0,
                  ls_head: int = 8,
-                 fit_mode: str = "auto",
-                 fit_pool: int = 512,
                  fit_ensemble: int = 1,
                  loss_trace: int = 0,
                  wost_source: str = "grid",
@@ -110,8 +109,9 @@ class NeuralFluid:
 
         fit_unroll: Adam iterations per while_loop trip in the phase
         fits. Results are identical for any value (sub-iterations are
-        early-stop-guarded); >1 amortizes the TPU's fixed per-op cost in
-        loop bodies, which dominates these small-matmul fits.
+        early-stop-guarded); >1 amortizes the loop's per-trip overhead.
+        The default 4 was tuned on another accelerator and is untuned on
+        the GPU.
 
         fit_plateau: stop a phase fit at the end of any
         `fit_plateau`-iteration window that improved the smoothed
@@ -120,13 +120,12 @@ class NeuralFluid:
         never fires, base.py:129-152, so every phase burns the full
         max_n_iters even after the loss floors). With the deterministic
         projections the two fits ARE the frame, so ending them at the
-        plateau converts directly into frames/sec. Gated on the TG error
+        plateau shortens the frame directly. Gated on the TG error
         curve (round 3, PARITY.md "fit_plateau gate"): plateau 250/500/
         1000 land at 1.06e-3/7.8e-4/6.3e-4 mean error vs 3.62e-4 with
         the full budget — the fit residual compounds through the
         semi-Lagrangian targets — so the default stays OFF; the knob
-        remains for speed-over-accuracy runs (plateau 1000 = 3.6x the
-        frames at INSR-beating error).
+        remains for speed-over-accuracy runs.
 
         ls_head: number of fresh minibatches over which to solve the
         final linear layer in CLOSED FORM (weighted ridge least squares)
@@ -139,8 +138,8 @@ class NeuralFluid:
         wander never reaches (part of the TG error floor, PARITY.md
         round-2 gap decomposition). Default ON at 8 batches on the
         round-3 TG gate: frames-1-50 error 3.578e-4 -> 3.458e-4 under
-        bem, 3.69e-4 -> 3.538e-4 under the parity MC walk, at unchanged
-        frame time (the solve is one (h1*dim)^2 eigensolve per phase);
+        bem, 3.69e-4 -> 3.538e-4 under the parity MC walk (the solve is
+        one (h1*dim)^2 eigensolve per phase);
         a fresh-batch do-no-harm guard keeps the Adam endpoint whenever
         the solve does not generalize (see PARITY.md 'ls_head gate')."""
         self.scene = scene
@@ -167,19 +166,9 @@ class NeuralFluid:
         self.fit_unroll = fit_unroll
         self.fit_plateau = fit_plateau
         self.ls_head = ls_head
-        # 'auto' resolves per backend: the fused Pallas fit on real TPU
-        # hardware (gated on the TG error curve under both bem and wost,
-        # PARITY.md 'fused-fit gate'), the XLA while_loop elsewhere (on
-        # CPU the kernel would run in Pallas interpret mode — a test
-        # vehicle, ~1000x slower than the XLA path).
-        if fit_mode == "auto":
-            fit_mode = ("fused" if jax.default_backend() not in ("cpu",)
-                        else "xla")
-        self.fit_mode = fit_mode
-        self.fit_pool = fit_pool
         # fit_ensemble > 1: run N independent phase fits (same start
         # params, disjoint minibatch streams) and average the resulting
-        # parameters. MEASURED NEGATIVE on TPU (round 5, PARITY.md "fit
+        # parameters. MEASURED NEGATIVE (round 5, PARITY.md "fit
         # averaging"): at the shipped 10k-iter fits the trajectories
         # decohere (||p1-p2||/||p|| ~ 5.5%) and the SIREN loss at the
         # parameter midpoint is ~1.9x either endpoint (3-point probe);
@@ -203,8 +192,8 @@ class NeuralFluid:
         self.n_batch = self.sample_resolution ** 2        # both 2D and 3D
         self.n_pressure = self.wost_resolution ** 2       # SURVEY.md 3.1/3.3
         # the walk program is solved in chunks of <= 64k points: one
-        # compiled program reused across chunks, and the v5e worker faults
-        # on the 262k-point 2D cloud in a single launch (measured)
+        # compiled program reused across chunks. The split was sized on
+        # another accelerator and is untuned on the GPU.
         self.wost_chunk = min(self.n_pressure, 65536)
         self.walk_settings = walk_settings or scene.walk_settings(
             n_walks=n_walks or scene.n_walks)
@@ -227,12 +216,10 @@ class NeuralFluid:
             absorption=scene.absorption)
         # wost_source="net": the walk's source term evaluates -div u at
         # the sampled point DIRECTLY from the network (batched forward-
-        # mode Jacobian — dense MXU matmuls) instead of gathering a
-        # precomputed nearest-texel grid. The round-5 roofline
-        # (docs/walk_roofline_r5.json) measured the per-step div-grid
-        # gather at the XLA gather ceiling (126 M lanes/s), 83% of the
-        # advance step; the MXU eval removes it AND the nearest-cell
-        # discretization error. The reference's texel cache is
+        # mode Jacobian — dense matmuls) instead of gathering a
+        # precomputed nearest-texel grid; it removes the per-step gather
+        # AND the nearest-cell discretization error. The reference's
+        # texel cache is
         # demo/image.h:53-58 — an artifact of its CPU architecture, not
         # of the estimator math.
         self.wost_source = wost_source
@@ -480,8 +467,6 @@ def _adam_fit(fluid, params0, key, batch_fn):
 
 def _adam_fit_single(fluid, params0, key, batch_fn):
     scene = fluid.scene
-    if fluid.fit_mode == "fused" and _fused_supported(fluid):
-        return _fused_fit(fluid, params0, key, batch_fn)
     if fluid.lr_schedule == "cosine":
         lr = optax.cosine_decay_schedule(scene.lr, fluid.max_n_iters,
                                          alpha=0.01)
@@ -582,10 +567,8 @@ def _adam_fit_single(fluid, params0, key, batch_fn):
         return out
 
     def body(carry):
-        # unrolled sub-iterations amortize the TPU's fixed per-op cost
-        # inside while_loop bodies (the fits are op-dispatch-bound: the
-        # karman 16384-pt batch measured ~0.9 ms/iter for ~0.1 ms of
-        # matmul math)
+        # unrolled sub-iterations amortize the per-trip loop overhead of
+        # these small-matmul fits
         for _ in range(max(1, fluid.fit_unroll)):
             carry = one_iter(carry)
         return carry
@@ -603,86 +586,6 @@ def _adam_fit_single(fluid, params0, key, batch_fn):
         out = _ls_head_solve(fluid, out, key, batch_fn)
     trace = carry[5] if trace_every else None
     return out, FitStats(iters=i, loss=loss, trace=trace)
-
-
-def _fused_supported(fluid):
-    """Feature gate for the fused Pallas fit (sim/fitkernel.py).
-
-    Falls back to the XLA while_loop when a knob the kernel does not
-    implement is active: parameter EMA, plateau early-stop, gradient
-    clipping, loss tracing (--vis_frequency), or a non-sine
-    nonlinearity.
-
-    Under a device mesh the kernel runs REPLICATED (round 4; round 3
-    fell back to the XLA loop, costing sharded runs the 3-20x fit
-    speedup): the K-batch pool is built point-sharded (the throughput
-    work — 2M network evals), then one all-gather re-replicates it
-    (~92 MB for TG, milliseconds on ICI) and every device runs the
-    identical kernel — multi-chip runs keep the single-chip fit speed,
-    measured equal to the meshless fused fit on the 8-device CPU mesh
-    (tests/test_parallel.py::test_fused_fit_under_mesh_matches).
-    TRUE data-parallel fits (per-iteration grad psum) stay rejected on
-    arithmetic, not taste: a fused iteration is 46 us on v5e (round-4
-    capture) and the batch work that sharding would divide is only ~half
-    of it, while a small-payload (~100 KB grads) ICI all-reduce costs
-    10s of us of latency per iteration — a >= 1x overhead for a <= 2x
-    saving. The walk and pressure stages remain sharded."""
-    return (fluid.param_ema == 0.0 and fluid.fit_plateau == 0
-            and fluid.grad_clip <= 0.0 and fluid.loss_trace == 0
-            and fluid.siren_cfg.nonlinearity == "sine")
-
-
-def _fit_lr_array(fluid):
-    """Per-iteration learning rates replicating _adam_fit's schedules."""
-    scene = fluid.scene
-    n = fluid.max_n_iters
-    if fluid.lr_schedule == "cosine":
-        sched = optax.cosine_decay_schedule(scene.lr, n, alpha=0.01)
-    elif fluid.lr_schedule == "tail":
-        hold = int(n * 0.8)
-        sched = optax.join_schedules(
-            [optax.constant_schedule(scene.lr),
-             optax.cosine_decay_schedule(scene.lr, max(1, n - hold),
-                                         alpha=0.02)],
-            boundaries=[hold])
-    else:
-        return jnp.float32(scene.lr)
-    return jax.vmap(sched)(jnp.arange(n))
-
-
-def _fused_fit(fluid, params0, key, batch_fn):
-    """Phase fit via the fused Pallas kernel (sim/fitkernel.py): the
-    training data for any one phase is fixed (targets depend only on
-    frozen params / the frozen pressure cloud / the scene), so we
-    precompute a pool of K minibatches — (x, A, c, target, w) with
-    (A, c) the scene's affine hard-BC wrapper — in one vectorized XLA
-    pass and run every Adam iteration inside a single pallas_call,
-    cycling batch i % K. Gated on the TG error curve like every other
-    default (PARITY.md 'fused fit gate')."""
-    from .fitkernel import fused_adam_fit
-
-    K = fluid.fit_pool
-
-    def make(kb):
-        x, target, w = batch_fn.batch(kb)
-        A, c = batch_fn.affine(x)
-        return x, A, c, target, w
-
-    # keys disjoint from ls_head's fold_in(key, max_n_iters + 1 + j)
-    keys = jax.vmap(lambda i: jax.random.fold_in(key, i))(jnp.arange(K))
-    pool = jax.lax.map(make, keys, batch_size=min(16, K))
-    if fluid.mesh is not None:
-        # pool build above is point-sharded; the kernel runs replicated
-        # on every device (see _fused_supported) — re-replicate here
-        from jax.sharding import NamedSharding, PartitionSpec
-        rep = NamedSharding(fluid.mesh, PartitionSpec())
-        pool = jax.tree.map(
-            lambda a: jax.lax.with_sharding_constraint(a, rep), pool)
-    params, loss = fused_adam_fit(params0, fluid.siren_cfg, pool,
-                                  fluid.max_n_iters, _fit_lr_array(fluid))
-    if fluid.ls_head > 0:
-        params = _ls_head_solve(fluid, params, key, batch_fn)
-    return params, FitStats(iters=jnp.int32(fluid.max_n_iters), loss=loss)
 
 
 def _ls_head_solve(fluid, params, key, batch_fn):
@@ -713,8 +616,10 @@ def _ls_head_solve(fluid, params, key, batch_fn):
         phi1 = jnp.concatenate([phi, jnp.ones_like(phi[..., :1])], -1)
         A, _ = batch_fn.affine(x)
         y = target - batch_fn.velocity(params, x)   # residual at endpoint
-        G = jnp.einsum('nde,ndf->nef', A, A)
-        Ay = jnp.einsum('nde,nd->ne', A, y)
+        G = jnp.einsum('nde,ndf->nef', A, A,
+                       precision=jax.lax.Precision.HIGHEST)
+        Ay = jnp.einsum('nde,nd->ne', A, y,
+                        precision=jax.lax.Precision.HIGHEST)
         for e in range(dim):
             rhs = rhs.at[:, e].add(dot(phi1.T, w * Ay[:, e]))
             for f in range(dim):
@@ -733,7 +638,7 @@ def _ls_head_solve(fluid, params, key, batch_fn):
     lmax = jnp.maximum(evals[-1], 1e-30)
     inv = jnp.where(evals > 1e-5 * lmax,
                     1.0 / jnp.maximum(evals, 1e-5 * lmax), 0.0)
-    delta = (evecs @ (inv * (evecs.T @ rf))).reshape(h1, dim)
+    delta = dot(evecs, inv * dot(evecs.T, rf)).reshape(h1, dim)
     cand = params[:-1] + [(W + delta[:-1], b + delta[-1])]
 
     # do-no-harm guard: the solve optimizes the sampled batches; at tiny

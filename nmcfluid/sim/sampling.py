@@ -131,7 +131,7 @@ def bilinear_lookup(grid, scene_size, y):
 def nearest_lookup(grid, scene_size, y):
     """Nearest-cell gather into a cell-centered grid over the scene box.
 
-    TPU equivalent of the C++ nearest-texel source lookup
+    Equivalent of the C++ nearest-texel source lookup
     (demo/image.h:53-58 in 2D, demo/scene_3d.h:102-128 in 3D). grid:
     (res_x[, res_y, res_z]); y: (..., dim). Out-of-box queries clamp."""
     dim = y.shape[-1]

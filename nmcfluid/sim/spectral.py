@@ -1,6 +1,6 @@
 """Deterministic screened-Poisson grid solver (DCT spectral method).
 
-TPU-native replacement for the reference's unused-but-shipped discrete
+Replacement for the reference's unused-but-shipped discrete
 pressure path (src/*/models/laplacian_solver.py: a prefactorized scipy
 5-point Laplacian behind --use_disc_p): solve
     (Lap - sigma) p = -f

@@ -1,4 +1,4 @@
-"""Reproduce the zombie demo's engine scene on the TPU estimator.
+"""Reproduce the zombie demo's engine scene on the JAX estimator.
 
 The reference ships a worked image-driven mixed-BC example
 (`bindings/zombie/demo/scenes/engine/`: boundary OBJ + is_neumann mask +
@@ -122,7 +122,7 @@ def main():
         ref = read_pfm(ref_path)[0]
         if ref.ndim == 3:
             ref = ref.mean(-1)
-        for ax, a, t in ((axes[0], img, "ours (TPU WoSt)"),
+        for ax, a, t in ((axes[0], img, "ours (JAX WoSt)"),
                          (axes[1], ref, "reference (committed wost.pfm)")):
             ax.imshow(a, cmap="turbo", vmin=0.0, vmax=1.1, origin="lower")
             ax.set_title(t)

@@ -93,7 +93,7 @@ def main():
         import matplotlib.pyplot as plt
         fig, axes = plt.subplots(1, 3, figsize=(13, 4.2))
         for ax, (img, t) in zip(axes, [(fresh, "fresh reference run"),
-                                       (ours, "ours (TPU estimator)"),
+                                       (ours, "ours (JAX estimator)"),
                                        (committed,
                                         "committed wost.pfm")]):
             im = ax.imshow(img, origin="lower", vmin=0.0, vmax=1.1,

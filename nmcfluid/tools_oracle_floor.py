@@ -7,8 +7,8 @@ targeting the analytic steady Taylor-Green field — no Monte Carlo, no
 semi-Lagrangian backtrace, no pressure solve, no target compounding. Two
 fits per frame (matching the advect+project cadence and its noise
 injections), chained from the previous frame's params exactly like the
-real stepper, under the production fit recipe (fused kernel on TPU,
-ls_head, HIGH precision). The resulting curve is the irreducible
+real stepper, under the production fit recipe (XLA while_loop fit,
+ls_head). The resulting curve is the irreducible
 refit-compounding floor: the part of the error budget a better
 projection could never remove.
 

@@ -12,7 +12,7 @@ The 2D street uses probe *vorticity*; in 3D the transverse velocity
 component is the standard shedding signal (one scalar, no curl stencil).
 
 Cheap on CPU (one 5-layer SIREN eval per checkpoint): run with
-JAX_PLATFORMS=cpu so it never touches the TPU mid-queue.
+JAX_PLATFORMS=cpu so it never touches the accelerator.
 """
 import argparse
 import json

@@ -23,9 +23,9 @@ as the normal-directional derivative (boundary_sampler.h:154-167, 213-216).
 Kernel regularization follows splatter.h:12-41 (2D Poisson kernel
 x (1 - e^{-r^2}); 3D G x erf(r), P x [erf(r) - 2r e^{-r^2}/sqrt(pi)]).
 
-Evaluation is one dense (eval x cache) kernel contraction — on TPU this is
-a single fused broadcast-reduce instead of zombie's per-eval-point TBB
-loop over the cache.
+Evaluation is one dense (eval x cache) kernel contraction — a single
+fused broadcast-reduce instead of zombie's per-eval-point TBB loop over
+the cache.
 """
 import math
 from functools import partial

@@ -5,8 +5,7 @@ lane until the LAST lane of a launch terminates. Box scenes exit in a few
 steps, but on obstacle scenes a minority of near-silhouette walkers run
 10-100x longer (tiny star radii keep the Yukawa throughput decay — and so
 Russian roulette — from firing), and the lockstep loop pays that max
-length across all ~131k lanes of all 250 pair launches: the measured 15x
-karman-vs-taylorgreen cliff of round 1.
+length across all ~131k lanes of all 250 pair launches.
 
 Here walks are instead drawn from a global work queue into a fixed pool
 of S slots. Every `pool_refill_every` steps, terminated lanes scatter
@@ -15,8 +14,9 @@ refilled from the queue (prefix-sum slot assignment), so wall-clock
 tracks the SUM of walk lengths — the per-point independent cost of the
 reference's TBB fan-out (walk_on_stars.h:91-104) — while every array
 keeps a static shape and the whole schedule runs in-graph with zero host
-round-trips inside a launch. A host loop chains fixed-trip launches only
-to stay under this image's sequential-while-trip worker-fault limit.
+round-trips inside a launch. A host loop chains fixed-trip launches
+(`pool_trips_per_launch`, a long-program guard sized on another
+accelerator).
 
 Estimator math is identical to the lockstep path (the per-step body is
 solver._advance, shared): antithetic first samples mirrored through the
@@ -57,9 +57,8 @@ class PointData(NamedTuple):
     """Per-evaluation-point precomputes (the _grad_launch preamble).
 
     `packed` concatenates every per-point field the refill stage needs
-    into one (N, K) row matrix so issuing a walk costs ONE gather
-    (TPU gathers serialize; round-2 profiling put the pool at ~0.3 us
-    per lane-step, gather-dominated). Column layout:
+    into one (N, K) row matrix so issuing a walk costs ONE gather.
+    Column layout:
     [pts (D) | rot (D-1) | R1 | norm1 | thr1 | bgd_coeff | degenerate |
      ball leaves (len(ball1))]."""
     pts: jax.Array         # (N, D)
@@ -150,9 +149,8 @@ def _decode(g, n_anti, n_active, active_idx):
 
     The queue enumerates (pair, half, active-slot); active_idx maps slot
     j -> real point id i, or None for the identity (non-adaptive runs:
-    keeps the decode pure integer arithmetic — the round-4 adaptive
-    gather measurably slowed the fixed path when it was unconditional,
-    karman 65k chunk walk 24.7 -> 35.6 s/frame). With the identity map
+    keeps the decode pure integer arithmetic — an unconditional adaptive
+    gather measurably slowed the fixed path). With the identity map
     the RNG stream ids derived from (w, i) are unchanged, so adaptive
     runs draw the SAME walks for the pairs they do issue."""
     j = g % n_active

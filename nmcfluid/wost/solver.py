@@ -1,6 +1,6 @@
-"""Batched walk-on-stars estimator for screened Poisson problems on TPU.
+"""Batched walk-on-stars estimator for screened Poisson problems.
 
-TPU-native rebuild of zombie's WalkOnStars<float, DIM>
+Rebuild of zombie's WalkOnStars<float, DIM>
 (reference: bindings/zombie/include/zombie/point_estimation/walk_on_stars.h).
 Where the reference runs one recursive walk per CPU thread over a BVH, this
 solver advances *all* walkers of a point batch in lockstep as SoA arrays
@@ -51,7 +51,7 @@ ACTIVE, DONE_RR, DONE_DIRICHLET, DROP_ESCAPED, DROP_MAXLEN = 0, 1, 2, 3, 4
 @dataclasses.dataclass(frozen=True)
 class WalkSettings:
     """Mirror of zombie::WalkSettings (walk_on_stars.h:679-742) plus the
-    TPU lockstep-loop cap. `walk_step_cap` bounds the while_loop; with the
+    lockstep-loop cap. `walk_step_cap` bounds the while_loop; with the
     shipped Russian-roulette threshold (0.99) and sigma=350 the surviving
     fraction at 64 steps is ~0 (tested), so the cap introduces no
     measurable bias while keeping the loop compilable."""
@@ -84,16 +84,14 @@ class WalkSettings:
     use_gradient_control_variates: bool = True
     use_gradient_antithetic_variates: bool = True
     # antithetic pairs advanced together as extra walker lanes per
-    # while_loop iteration. Measured on v5e at 65536x500: G=10 is SLOWER
-    # (15.9s vs 10.9s) — the solve is lane-throughput-bound and lockstep
-    # batches multiply wasted work on already-terminated lanes — so the
-    # default stays sequential; the knob remains for small point counts.
+    # while_loop iteration. Lockstep batches multiply wasted work on
+    # already-terminated lanes, so the default stays sequential; the knob
+    # remains for small point counts.
     pair_batch: int = 1
     # pairs per device launch: the gradient estimator host-loops over
-    # launches of this many pairs, carrying the running sums. One XLA
-    # program with > ~8k sequential while-loop trips faults this image's
-    # TPU worker (measured: 250 pairs x 64-step caps crash; 100 x 64 and
-    # 250 x 16 run) — and scenes with obstacles walk to the cap.
+    # launches of this many pairs, carrying the running sums. The value
+    # is a guard against very long single programs, sized on another
+    # accelerator; untuned on the GPU.
     pairs_per_launch: int = 50
     # counter-based PCG hash for the per-step walk draws (ops.fastrand):
     # ~10 ALU ops per uniform instead of threefry's ~100+, the dominant
@@ -102,9 +100,8 @@ class WalkSettings:
     fast_rng: bool = True
     # ---- executor for the gradient estimator. "gen" (default, round
     # 5): point-aligned generations with one-shot survivor compaction
-    # (wost/gen.py) — zero gathers/scatters in the steady path; measured
-    # 2.75x (TG) / 2.3x (karman) over the pool at identical estimates.
-    # "pool": compacted walker queue (wost/pool.py) — cost tracks the
+    # (wost/gen.py) — zero gathers/scatters in the steady path, identical
+    # estimates to the pool. "pool": compacted walker queue (wost/pool.py) — cost tracks the
     # SUM of walk lengths, the reference's per-point independent cost
     # (walk_on_stars.h:91-104) with static shapes; the round-2..4
     # parity executor. "lockstep" keeps the round-1 pair-launch loop.
@@ -113,11 +110,8 @@ class WalkSettings:
     # walk steps between scatter/refill. The refill is an S-wide
     # _start_states + scatter, comparable in cost to an advance step;
     # K>1 amortizes that overhead for at most K-1 idle steps per
-    # finished walk. Measured on the karman 65k chunk: K=1 21.5s,
-    # K=2 14.6s, K=4 14.7s, K=8 17.5s (idle lanes win) -> 2; after the
-    # gather-free geometry/radial rework shrank the advance step, the
-    # refill share grew and K=3 became the optimum (K=2 6.45s, K=3
-    # 6.04s, K=4 6.08s).
+    # finished walk. K=3 was tuned on another accelerator; untuned on
+    # the GPU.
     pool_refill_every: int = 3
     # per-walk step cap in pool mode. Walks that exceed it are DROPPED
     # from the statistics (DROP_MAXLEN, matching which completion codes
@@ -125,7 +119,7 @@ class WalkSettings:
     # fraction is ~0 even next to the karman obstacle, where the
     # lockstep default (64) dropped a measurable share of walkers.
     pool_step_cap: int = 1024
-    pool_trips_per_launch: int = 2048  # sequential-trip fault guard
+    pool_trips_per_launch: int = 2048  # long-program guard, GPU-untuned
     # pairs estimated with zero control variates before the CVs are
     # frozen for the remaining pairs (the reference warms its running
     # mean from zero the same way, walk_on_stars.h:501-506)
@@ -148,12 +142,12 @@ class WalkSettings:
     adaptive_rounds: int = 4
     # ---- generation executor (wost/gen.py; algo="gen", round 5).
     # Point-aligned lockstep generations of gen_group_pairs pairs: the
-    # lane->point map is a reshape (zero gathers/scatters — the pool's
-    # scatter/refill was 55% of the TG trip, walk_roofline_r5). Lanes
+    # lane->point map is a reshape (zero gathers/scatters). Lanes
     # still active at gen_step_cap are DROPPED from the statistics
     # (reference maxWalkLength semantics); at sigma=350 the surviving
     # fraction at 64 steps is ~0. Generations chain in-graph,
-    # gen_groups_per_launch per device program (dispatch-latency guard).
+    # gen_groups_per_launch per device program (a per-launch-overhead
+    # guard sized on another accelerator; untuned on the GPU).
     gen_group_pairs: int = 4
     gen_step_cap: int = 1024     # == pool_step_cap drop semantics
     gen_groups_per_launch: int = 16

@@ -186,33 +186,36 @@ def test_sharded_bem_projection_matches_single_device():
                                atol=2e-5)
 
 
-def test_fused_fit_under_mesh_matches():
-    """Round-4: the fused Pallas fit no longer falls back to the XLA loop
-    under a mesh — the pool is built point-sharded, re-replicated with
-    one all-gather, and the kernel runs identically on every device. The
-    result must match the meshless fused fit exactly (same keys)."""
+def test_xla_fit_under_mesh_matches():
+    """The while_loop phase fit under the 8-device mesh (minibatches
+    point-sharded, parameters replicated, the loss a cross-device sum)
+    must match the meshless fit from the same keys up to reduction
+    order."""
     import dataclasses
     from nmcfluid.parallel import points_mesh
     from nmcfluid.scenes import get_scene
     from nmcfluid.sim import NeuralFluid
-    from nmcfluid.sim.fluid import _fit_source, _fused_supported
+    from nmcfluid.sim.fluid import _fit_source
     from nmcfluid.wost.solver import WalkSettings
 
     scene = get_scene("taylorgreen")
     scene = dataclasses.replace(scene, max_n_iters=12)
-    kw = dict(sample_resolution=8, wost_resolution=8, div_resolution=16,
-              fit_mode="fused", fit_pool=4, ls_head=0,
+    kw = dict(sample_resolution=16, wost_resolution=8, div_resolution=16,
+              ls_head=0,
               walk_settings=WalkSettings(n_walks=4, walk_step_cap=4))
     fl0 = NeuralFluid(scene, **kw)
     fl8 = NeuralFluid(scene, mesh=points_mesh(), **kw)
-    assert _fused_supported(fl8), "mesh must not disable the fused fit"
     st = fl0.init_state(0)
     key = jax.random.PRNGKey(5)
     p0, s0 = _fit_source(fl0, st.params, key, st.eps, st.timestep)
     with fl8.mesh:
         p8, s8 = _fit_source(fl8, st.params, key, st.eps, st.timestep)
+    assert int(s0.iters) == int(s8.iters) == 12
+    # 12 Adam steps at lr 1e-5 move a parameter by <= 1.2e-4; the bound
+    # admits reduction-order noise, not a different trajectory
     for (w0, b0), (w8, b8) in zip(p0, p8):
         np.testing.assert_allclose(np.asarray(w0), np.asarray(w8),
-                                   rtol=1e-6, atol=1e-7)
+                                   rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(np.asarray(b0), np.asarray(b8),
-                                   rtol=1e-6, atol=1e-7)
+                                   rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(s0.loss), float(s8.loss), rtol=1e-4)

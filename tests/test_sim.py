@@ -91,7 +91,7 @@ def test_fit_plateau_stops_floored_fit_keeps_converging_fit():
 
 def test_wost_source_net_matches_grid():
     """wost_source='net' (exact network divergence at the sampled point,
-    MXU matmuls) must agree with the reference's nearest-texel grid
+    dense matmuls) must agree with the reference's nearest-texel grid
     lookup up to the grid's own discretization error: same key => same
     walk trajectories, only the source values differ."""
     from nmcfluid.sim.fluid import _divergence_grid, _pressure_solve
@@ -400,7 +400,7 @@ def test_loss_trace_records_fit_snapshots():
     import dataclasses
     from nmcfluid.scenes import get_scene
     from nmcfluid.sim import NeuralFluid
-    from nmcfluid.sim.fluid import _fit_source, _fused_supported
+    from nmcfluid.sim.fluid import _fit_source
     from nmcfluid.wost.solver import WalkSettings
 
     scene = dataclasses.replace(get_scene("taylorgreen"), max_n_iters=40)
@@ -408,7 +408,6 @@ def test_loss_trace_records_fit_snapshots():
                         div_resolution=16, ls_head=0, loss_trace=10,
                         walk_settings=WalkSettings(n_walks=4,
                                                    walk_step_cap=4))
-    assert not _fused_supported(fluid)   # tracing runs the XLA fit
     st = fluid.init_state(0)
     params, stats = _fit_source(fluid, st.params, jax.random.PRNGKey(0),
                                 st.eps, st.timestep)
